@@ -5,7 +5,7 @@
 // reference ships only a Windows .exe and publishes no numbers.
 //
 // Estimator semantics follow SURVEY.md §2's inventory including the quirks
-// (so fidelity comparisons against the TPU renderer in "ref" mode are
+// (so fidelity comparisons against the JAX renderer in "ref" mode are
 // apples-to-apples):
 //   - NEE per light with prefix-area CDF pick; pick range = FIRST light's
 //     total area (the reference's static-distribution quirk)
@@ -227,7 +227,7 @@ struct HitR {
 // bitwise-identical t for coplanar axis-aligned quads (so its exact
 // equality check works); Moller-Trumbore arithmetic differs per triangle,
 // so the band makes the tie-break robust (mirrors config.tie_eps in the
-// TPU renderer).
+// JAX renderer).
 constexpr float kTieEps = 4e-6f;
 
 inline bool hit_tri(const Tri& tr, V3 o, V3 d, float* t, float* u, float* v) {

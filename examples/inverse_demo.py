@@ -1,8 +1,8 @@
 """Inverse rendering on the FAST path: recover the cornell box's wall
-albedos from a target image by gradient descent through the fused trace
-kernel (diff/fast.py custom-VJP path replay).
+albedos from a target image by gradient descent through the trace
+(diff/fast.py custom-VJP path replay).
 
-Run (any backend; TPU for speed):
+Run (any backend; a GPU for speed):
     python examples/inverse_demo.py [steps] [resolution]
 """
 import sys

@@ -78,49 +78,23 @@ def test_single_triangle_and_tiny_scenes():
     assert (nodes["count"] > 0).sum() == 2  # must split: 9 > 8
 
 
-def test_widen_bvh_structure():
-    """widen_bvh must partition the binary tree's leaves exactly: every
-    leaf id appears exactly once across all wide-node children, child
-    boxes equal the binary nodes' padded boxes, and internal children
-    reference valid wide nodes forming a tree (each non-root wide node
-    referenced exactly once)."""
-    import numpy as np
+def test_bvh_arrays_topology():
+    """bvh_arrays' static topology (used by the refit and by the CUDA
+    trace's stack bound): children are i+1 and skip[i+1], levels count
+    depth from the root, every triangle maps to the leaf that holds it."""
+    from tinyraytracing_tpu.ops.bvh import build_bvh, bvh_arrays
 
-    from tinyraytracing_tpu.ops.bvh import build_bvh, widen_bvh
-
-    rng = np.random.default_rng(11)
-    tri = rng.uniform(-5, 5, (777, 3, 3))
-    nodes, _perm = build_bvh(tri, leaf_size=8)
-    wide, depth, _bmap = widen_bvh(nodes)
-    count = nodes["count"]
-    n_leaves = int((count > 0).sum())
-
-    metas = wide[:, 6::8]
-    leaf_ids = []
-    internal_refs = []
-    for wi in range(wide.shape[0]):
-        for c in range(8):
-            m = metas[wi, c]
-            if m == -1.0:
-                continue
-            if m <= -2.0:
-                dec = int(-m) - 2
-                leaf_ids.append(dec >> 6)
-                assert 1 <= (dec & 63) <= 8   # slot count (leaf_size 8 here)
-            else:
-                internal_refs.append(int(m))
-    assert sorted(leaf_ids) == list(range(n_leaves))
-    # each non-root wide node referenced exactly once, no self/back refs
-    assert sorted(internal_refs) == list(range(1, wide.shape[0]))
-    assert depth >= 1
-    # child boxes must be actual binary-node boxes (padded)
-    all_boxes = set()
+    rng = np.random.default_rng(5)
+    tri = rng.uniform(0, 10, (300, 3, 3))
+    nodes, _perm = build_bvh(tri, leaf_size=4)
+    b = bvh_arrays(nodes, 4, 1e-3)
+    count, skip, start = nodes["count"], nodes["skip"], nodes["start"]
+    level = np.asarray(b.level)
     for i in range(len(count)):
-        all_boxes.add(tuple(np.round(
-            np.concatenate([nodes["nmin"][i], nodes["nmax"][i]]).astype(np.float32), 5)))
-    for wi in range(wide.shape[0]):
-        for c in range(8):
-            if metas[wi, c] == -1.0:
-                continue
-            box = tuple(np.round(wide[wi, c * 8:c * 8 + 6], 5))
-            assert box in all_boxes
+        if count[i] == 0:
+            assert b.child_l[i] == i + 1 and b.child_r[i] == skip[i + 1]
+            assert level[i + 1] == level[skip[i + 1]] == level[i] + 1
+        else:
+            ids = np.asarray(b.tri_leaf)[start[i]:start[i] + count[i]]
+            assert (ids == i).all()
+    assert b.n_levels == level.max() + 1 and level[0] == 0

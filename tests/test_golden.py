@@ -14,10 +14,18 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tests.conftest import SCENES
 from tinyraytracing_tpu.config import RenderConfig
 from tinyraytracing_tpu.io.image import read_png, tonemap_srgb
 from tinyraytracing_tpu.render import render
+
+
+def _load_back(scenes, with_bvh=False):
+    """The reference's 26-triangle smoke scene test/back."""
+    from tinyraytracing_tpu.models.scene import load_scene
+
+    base = f"{scenes}/test"
+    return load_scene(f"{base}/back.xml", f"{base}/back.obj",
+                      f"{base}/back.mtl", base, with_bvh=with_bvh)
 
 
 def _golden(path, size):
@@ -28,15 +36,15 @@ def _golden(path, size):
 
 
 @pytest.mark.slow
-def test_back_scene_matches_golden(test_scene):
-    scene, cam = test_scene
+def test_back_scene_matches_golden(reference_scenes):
+    scene, cam = _load_back(reference_scenes)
     size, spp = 64, 24
     cam = dataclasses.replace(cam, width=size, height=size)
     cfg = RenderConfig(intersector="mxu", max_depth=10, tri_chunk=64)
     ours = tonemap_srgb(
         np.asarray(render(scene, cam, jax.random.PRNGKey(0), cfg, spp))
     ).astype(np.float64)
-    gold = _golden(f"{SCENES}/test/image10.png", size)
+    gold = _golden(f"{reference_scenes}/test/image10.png", size)
 
     # The golden is a 10-spp render: per-pixel MC noise is large, and the
     # concave tonemap + uint8 clipping systematically DARKEN noisy renders
@@ -60,7 +68,7 @@ def test_back_scene_matches_golden(test_scene):
 
 @pytest.mark.slow
 def test_cornell_matches_cpu_reference_render():
-    """Cross-implementation fidelity: our TPU-native renderer vs the CPU
+    """Cross-implementation fidelity: our renderer vs the CPU
     reimplementation of the reference estimator (baselines/cpu_reference.cc)
     on the same synthesized cornell geometry."""
     import os
@@ -102,7 +110,7 @@ def test_cornell_matches_cpu_reference_render():
     assert corr > 0.92, corr
 
 
-def _run_cpu_ref_scene(name, spp, w, h):
+def _run_cpu_ref_scene(scenes, name, spp, w, h):
     """Render a reference scene with the CPU reimplementation of the
     reference estimator (baselines/cpu_reference.cc --scene) and return
     the uint8 image as float64 (h, w, 3)."""
@@ -120,7 +128,7 @@ def _run_cpu_ref_scene(name, spp, w, h):
             )
         except Exception:
             pytest.skip("no native toolchain")
-    base = f"{SCENES}/{name}"
+    base = f"{scenes}/{name}"
     stem = {"veach-mis": "veach-mis", "test": "back"}[name]
     out = f"/tmp/_xcheck_{stem}.ppm"
     subprocess.run(
@@ -156,7 +164,7 @@ def _xcheck(ours, ref, mean_tol, corr_min, block_p99, block_max, block=8):
 
 
 @pytest.mark.slow
-def test_veach_matches_cpu_reference_estimator():
+def test_veach_matches_cpu_reference_estimator(reference_scenes):
     """veach-mis (2,332 tris, 3 lights, Ns up to 1000) at equal spp vs
     cpu_ref --scene: the flagship queue renderer in full reference-quirk
     mode. Calibrated bounds ~2x the observed discrepancy (mean err 0.25%,
@@ -166,7 +174,7 @@ def test_veach_matches_cpu_reference_estimator():
     from tinyraytracing_tpu.integrator.fused_queue import render_fused_queue_jit
     from tinyraytracing_tpu.models.scene import load_scene
 
-    base = f"{SCENES}/veach-mis"
+    base = f"{reference_scenes}/veach-mis"
     scene, cam = load_scene(f"{base}/veach-mis.xml", f"{base}/veach-mis.obj",
                             f"{base}/veach-mis.mtl", base, with_bvh=True)
     cam = dataclasses.replace(cam, width=128, height=72)
@@ -175,26 +183,26 @@ def test_veach_matches_cpu_reference_estimator():
     ours = tonemap_srgb(np.asarray(render_fused_queue_jit(
         scene, cam, jax.random.PRNGKey(0), cfg, 8, lanes=16384
     ))).astype(np.float64)
-    ref = _run_cpu_ref_scene("veach-mis", 8, 128, 72)
+    ref = _run_cpu_ref_scene(reference_scenes, "veach-mis", 8, 128, 72)
     _xcheck(ours, ref, mean_tol=0.015, corr_min=0.93,
             block_p99=0.15, block_max=0.25)
 
 
 @pytest.mark.slow
-def test_back_matches_cpu_reference_estimator(test_scene_bvh):
+def test_back_matches_cpu_reference_estimator(reference_scenes):
     """test/back (26 tris) at equal spp vs cpu_ref --scene — much tighter
     than the checked-in-golden eyeball test above."""
     import dataclasses
 
     from tinyraytracing_tpu.integrator.fused_queue import render_fused_queue_jit
 
-    scene, cam = test_scene_bvh
+    scene, cam = _load_back(reference_scenes, with_bvh=True)
     cam = dataclasses.replace(cam, width=96, height=96)
     cfg = RenderConfig(intersector="bvh", max_depth=16, light_sampler="ref",
                        specular_weight="ref", shadow_test="mtl")
     ours = tonemap_srgb(np.asarray(render_fused_queue_jit(
         scene, cam, jax.random.PRNGKey(0), cfg, 16, lanes=8192
     ))).astype(np.float64)
-    ref = _run_cpu_ref_scene("test", 16, 96, 96)
+    ref = _run_cpu_ref_scene(reference_scenes, "test", 16, 96, 96)
     _xcheck(ours, ref, mean_tol=0.03, corr_min=0.93,
             block_p99=0.2, block_max=0.35)

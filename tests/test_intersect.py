@@ -159,7 +159,7 @@ def test_bvh_no_early_out_matches(test_scene_bvh, rng):
 
 
 def test_mxu_matches_brute(test_scene, rng):
-    """The Woop-transform matmul intersector (MXU path) must agree with
+    """The Woop-transform matmul intersector (mxu) must agree with
     Möller–Trumbore on hits, distances, and same-index barycentrics."""
     from tinyraytracing_tpu.ops.intersect import mxu_intersect
 
@@ -177,52 +177,3 @@ def test_mxu_matches_brute(test_scene, rng):
     same = m & (np.asarray(h1.idx) == np.asarray(h2.idx))
     assert same.sum() / m.sum() > 0.99  # shared-edge ties may differ
     np.testing.assert_allclose(np.asarray(h1.u)[same], np.asarray(h2.u)[same], atol=1e-4)
-
-
-def test_pallas_matches_mxu(test_scene, rng):
-    """The fused Pallas kernel must agree exactly with the XLA mxu backend
-    (runs in interpret mode on the CPU test backend)."""
-    from tinyraytracing_tpu.ops.intersect import mxu_intersect
-    from tinyraytracing_tpu.ops.pallas_intersect import pallas_intersect
-
-    scene, _ = test_scene
-    for R in (2048, 1000):  # even and uneven tile counts
-        org = jnp.asarray(
-            rng.uniform([0, 0, -400], [556, 548, 559], (R, 3)), jnp.float32
-        )
-        d = rng.normal(size=(R, 3))
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        d = jnp.asarray(d, jnp.float32)
-        h1 = mxu_intersect(scene, org, d, CFG.replace(tri_chunk=128))
-        h2 = pallas_intersect(scene, org, d, CFG.replace(tri_chunk=128))
-        np.testing.assert_array_equal(np.asarray(h1.hit), np.asarray(h2.hit))
-        m = np.asarray(h1.hit)
-        np.testing.assert_array_equal(np.asarray(h1.idx)[m], np.asarray(h2.idx)[m])
-        # the kernel computes the K=3 contraction as FMA chains; rounding
-        # differs from the XLA HIGHEST-precision matmul in final ulps
-        np.testing.assert_allclose(np.asarray(h1.t)[m], np.asarray(h2.t)[m], rtol=1e-4, atol=1e-3)
-
-
-def test_packet_bvh_matches_while_loop(test_scene_bvh, rng):
-    """Pallas packet BVH traversal vs the while_loop traversal (interpret
-    mode), on the test scene and on a larger procedural grid."""
-    from tinyraytracing_tpu.models.procedural import quad_grid
-    from tinyraytracing_tpu.ops.pallas_bvh import pallas_bvh_intersect
-
-    scenes = [test_scene_bvh[0], quad_grid(3000, width=8, height=8)[0]]
-    for scene in scenes:
-        R = 1024
-        org = jnp.asarray(
-            rng.uniform([50, 50, -400], [500, 500, 500], (R, 3)), jnp.float32
-        )
-        d = rng.normal(size=(R, 3))
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        d = jnp.asarray(d, jnp.float32)
-        h1 = bvh_intersect(scene, org, d, CFG)
-        h2 = pallas_bvh_intersect(scene, org, d, CFG)
-        np.testing.assert_array_equal(np.asarray(h1.hit), np.asarray(h2.hit))
-        m = np.asarray(h1.hit)
-        assert (np.asarray(h1.idx)[m] == np.asarray(h2.idx)[m]).mean() > 0.999
-        np.testing.assert_allclose(
-            np.asarray(h1.t)[m], np.asarray(h2.t)[m], rtol=1e-4, atol=1e-3
-        )

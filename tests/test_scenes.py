@@ -11,19 +11,18 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tests.conftest import SCENES
 from tinyraytracing_tpu.config import RenderConfig
 from tinyraytracing_tpu.io.image import read_png, tonemap_srgb
 from tinyraytracing_tpu.models.scene import load_scene
 from tinyraytracing_tpu.render import render
 
 
-def _run(name, w=96, h=54, spp=2, depth=4):
+def _run(scenes, name, w=96, h=54, spp=2, depth=4):
     scene, cam = load_scene(
-        f"{SCENES}/{name}/{name}.xml",
-        f"{SCENES}/{name}/{name}.obj",
-        f"{SCENES}/{name}/{name}.mtl",
-        f"{SCENES}/{name}",
+        f"{scenes}/{name}/{name}.xml",
+        f"{scenes}/{name}/{name}.obj",
+        f"{scenes}/{name}/{name}.mtl",
+        f"{scenes}/{name}",
         with_bvh=True,
     )
     cam = dataclasses.replace(cam, width=w, height=h)
@@ -33,8 +32,9 @@ def _run(name, w=96, h=54, spp=2, depth=4):
 
 
 @pytest.mark.slow
-def test_veach_mis():
-    scene, img = _run("veach-mis")
+def test_veach_mis(reference_scenes):
+    scenes = reference_scenes
+    scene, img = _run(scenes, "veach-mis")
     assert scene.num_triangles == 2332 and scene.num_lights == 3
     # the NEE first-light-range quirk needs light1 first
     assert scene.light_names[0] == "light1"
@@ -42,7 +42,7 @@ def test_veach_mis():
     assert np.isfinite(img).all() and img.mean() > 0.05
     ours = tonemap_srgb(img).astype(np.float64)
     gold = np.asarray(
-        Image.fromarray(read_png(f"{SCENES}/veach-mis/image10.png")).resize(
+        Image.fromarray(read_png(f"{scenes}/veach-mis/image10.png")).resize(
             (96, 54), Image.BOX
         ),
         np.float64,
@@ -54,8 +54,8 @@ def test_veach_mis():
 
 
 @pytest.mark.slow
-def test_staircase_textures():
-    scene, img = _run("staircase", spp=2, depth=3)
+def test_staircase_textures(reference_scenes):
+    scene, img = _run(reference_scenes, "staircase", spp=2, depth=3)
     assert scene.num_triangles == 31407 and scene.num_lights == 6
     assert scene.tex.shape[0] == 3  # Tiles/Wallpaper/wood5
     assert int(scene.tex_id.max()) >= 0

@@ -38,11 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "by scene size); scan = fixed-depth differentiable path")
     p.add_argument("--lanes", type=int, default=262144,
                    help="wavefront width for the fused renderers")
-    p.add_argument("--leaf-size", default="auto",
-                   help="BVH leaf width: an int, or 'auto' (reference's 8 "
-                        "for small scenes, 32 for >=10K triangles — measured "
-                        "1.4x on staircase; estimator-independent)")
-    p.add_argument("--intersector", default="auto", choices=["auto", "mxu", "brute", "bvh", "pallas", "bvh_pallas"])
+    p.add_argument("--leaf-size", type=int, default=8,
+                   help="BVH leaf width (reference default 8; "
+                        "estimator-independent)")
+    p.add_argument("--intersector", default="auto",
+                   choices=["auto", "mxu", "brute", "bvh"],
+                   help="plain-path intersector (the scan renderer, and the "
+                        "fused renderers off the GPU)")
     p.add_argument("--light-sampler", default="ref", choices=["ref", "uniform"])
     p.add_argument("--specular-weight", default="ref", choices=["ref", "ks"])
     p.add_argument("--shadow-test", default="mtl", choices=["mtl", "tmin"])
@@ -63,16 +65,11 @@ def main(argv=None) -> int:
     import dataclasses
 
     if not args.no_compile_cache:
-        # multi-minute Mosaic/XLA compiles (e.g. veach queue ~4-5 min cold)
-        # are paid once per (scene shape, config) instead of per invocation
-        import jax
+        # long XLA compiles are paid once per (scene shape, config)
+        # instead of per invocation
+        from tinyraytracing_tpu.utils.compile_cache import enable_compile_cache
 
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                           os.path.expanduser("~/.cache/tinyraytracing_tpu/xla")),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+        enable_compile_cache()
 
     from tinyraytracing_tpu.config import RenderConfig
     from tinyraytracing_tpu.models.scene import load_scene
@@ -90,12 +87,13 @@ def main(argv=None) -> int:
         max_depth=args.max_depth,
         p_rr=args.p_rr,
         intersector=args.intersector,
+        leaf_size=args.leaf_size,
         light_sampler=args.light_sampler,
         specular_weight=args.specular_weight,
         shadow_test=args.shadow_test,
     )
-    # the fused renderers need the packed-leaf BVH; build it at load unless
-    # the user explicitly asked for the scan path with a non-BVH intersector
+    # the fused renderers trace a BVH; build it at load unless the user
+    # explicitly asked for the scan path with a non-BVH intersector
     with_bvh = (
         args.renderer in ("auto", "persistent", "queue")
         or config.intersector in ("auto", "bvh")
@@ -121,11 +119,6 @@ def main(argv=None) -> int:
     if with_bvh:
         from tinyraytracing_tpu.ops.bvh import attach_bvh
 
-        if args.leaf_size == "auto":
-            leaf = 32 if scene.num_triangles >= 10_000 else config.leaf_size
-        else:
-            leaf = int(args.leaf_size)
-        config = config.replace(leaf_size=leaf)
         scene = attach_bvh(scene, config)
     if args.width or args.height:
         cam = dataclasses.replace(

@@ -54,7 +54,12 @@ class RenderConfig:
     # intersection
     t_min: float = 5e-4
     n_dot_d_min: float = 1e-5
-    intersector: str = "auto"    # auto | mxu | brute | bvh | pallas | bvh_pallas
+    intersector: str = "auto"    # auto | mxu | brute | bvh
+    # how the renderers' trace finds hits (ops/trace.py): "cuda" = the
+    # CUDA kernel (GPU only; elsewhere an error), "xla" = the plain JAX
+    # path through ``intersector``, "auto" = the kernel on a GPU, the
+    # plain path elsewhere
+    trace: str = "auto"          # auto | cuda | xla
     tri_chunk: int = 256         # triangle tile for the chunked brute-force scan
     tie_eps: float = 4e-6        # RELATIVE t band treated as "equal distance"
     # for the emissive tie-break (bvh.cpp:219). The reference's plane test
@@ -73,77 +78,36 @@ class RenderConfig:
     specular_weight: str = "ref"   # ref | ks
     shadow_test: str = "mtl"       # mtl | tmin
     # queue-renderer refill granularity. "lane": a dead lane immediately
-    # takes the next queue entry (~100% occupancy, but packets drift into
-    # incoherent path mixtures as lanes die at different times — on big
-    # trees the packet-union walk then visits a large tree fraction).
-    # "row": a 128-lane row refills only when wholly dead, so each row is
-    # always 128 CONSECUTIVE tile-order paths (spatially tight); costs
-    # occupancy (survivors park rows) but shrinks the walk union. The
-    # t-bound parking makes waiting lanes nearly free in-kernel.
+    # takes the next queue entry (~100% occupancy; neighbouring lanes drift
+    # into incoherent path mixtures as lanes die at different times).
+    # "row": a 128-lane row refills only when wholly dead, so each row
+    # always holds 128 CONSECUTIVE tile-order paths (spatially tight) at
+    # the cost of occupancy (survivors park rows).
     queue_refill: str = "lane"     # lane | row
     # re-sort the queue renderer's lane state every N iterations (0 =
     # never, -1 = auto): refills insert new paths at dead-lane positions,
-    # so packets drift into incoherent mixtures; a periodic stable sort
-    # restores packet locality at the cost of ~16 plane gathers per
-    # resort. veach-mis REGRESSES under any resort (small tree: sort
-    # cost > union gain) — auto resorts only scenes >= 10K triangles,
-    # with the MORTON key (round 4: staircase 5.79 -> 5.95 at N=2,
-    # grid100K 0.59 -> 0.81 and grid1M 0.18 -> 0.24 at N=1).
+    # so neighbouring lanes drift into incoherent mixtures; a periodic
+    # stable sort restores locality at the cost of one multi-plane sort.
+    # "auto" resorts scenes >= 10K triangles by the MORTON key (every
+    # iteration on trees of more than 4096 nodes, every second one below).
+    # These choices were tuned on the previous accelerator; on the GPU
+    # they are not measured yet.
     queue_resort_every: int = -1
     # resort key: "path" = pure path id (tile-order origins);
     # "path_octant" = path id blocks sub-sorted by direction octant;
-    # "morton" = 15-bit morton code of the ray origin (spatial packet
-    # re-formation — targets flat many-leaf scenes whose packets
-    # otherwise span hundreds of leaves)
+    # "morton" = 15-bit morton code of the ray origin (spatial
+    # re-formation for flat many-leaf scenes)
     queue_resort_key: str = "path"
-    # morton-resort cells per axis (sweep knob; 32/64/128 measured flat on
-    # the grid scenes round 4). A config field — not an env var — so sweeps
-    # invalidate the jit cache like any other config change.
+    # morton-resort cells per axis. A config field — not an env var — so
+    # sweeps invalidate the jit cache like any other config change.
     morton_cells: int = 32
-    # rays per kernel packet (one shared walk per packet); 0 = auto
-    # per-scene pick (ops/pallas_trace.py RAY_TILE rationale + sweeps)
-    ray_tile: int = 0
-    # BVH walk shape for the fused trace kernel. "wide": 8-wide collapsed
-    # nodes with a scalar SMEM stack — one visit tests 8 child boxes and
-    # leaf visits lose their separate box test (ops/bvh.widen_bvh).
-    # "binary": the round-3 skip-link walk. "auto" (default) picks wide
-    # exactly when the binary walk would spill its node table to HBM
-    # records (> SMEM_NODE_LIMIT nodes): measured on v5e random rays,
-    # wide wins big trees (staircase 2.93 -> 4.79, grid100K 0.20 -> 0.37
-    # Mrays/s) and loses small SMEM trees (veach-mis 5.17 -> 3.83 — the
-    # fixed 8-arity wastes ~45% of its box tests on empty slots there
-    # while SMEM-resident binary visits are already overhead-free).
-    bvh_walk: str = "auto"         # auto | wide | binary
     # compact live shadow lanes to the front of each light's segment
-    # before the occlusion dispatch (fused_queue). ~35-40% of shadow
-    # lanes are zero-contribution parked (measured: staircase 63% live,
-    # veach 61% — benchmarks/shadow_density.py); packing the live lanes
-    # lets the parked tail packets exit at the root instead of diluting
-    # every packet. Per-lane kernel results are packet-membership-
-    # invariant (a leaf visited only for packet-mates cannot produce an
-    # accepted hit for a lane whose slab+bound test failed — the same
-    # (1+tie_eps) band governs both), so renders are bitwise-identical;
-    # the compaction itself is one batched stable (L, R) lax.sort each
-    # way. "auto" enables it exactly where the walk is expensive enough
-    # to pay for the two sorts (wide trees, n_wide > 512 — the same
-    # signal as the every-iteration resort): staircase 8.17 -> 9.23
-    # Mrays/s; veach's cheap walk LOSES to the sort cost (22.3 -> 18.9),
-    # so small trees keep the plain dispatch.
+    # before the occlusion dispatch (ops/trace.occlusion_trace_segmented).
+    # Per-lane trace results do not depend on a lane's neighbours, so
+    # renders are bitwise-identical either way; the compaction itself is
+    # one batched stable (L, R) lax.sort each way. "auto" enables it on
+    # trees of more than 4096 nodes (not yet measured on the GPU).
     shadow_compact: str = "auto"   # auto | on | off
-    # wide-walk child push order: "preorder" pops in the binary walk's
-    # order (results bitwise-equal to it); "near" sorts children by
-    # box-center distance along the packet's MEAN direction (19-CE scalar
-    # network per interior visit) so near nodes are visited first —
-    # occluders kill shadow lanes sooner and close hits shrink the
-    # closest-hit bound sooner. Visit order changes which tie-band /
-    # kill-order corner cases win, so images can differ from the binary
-    # walk in the last ulps of a few lanes (measure before enabling).
-    walk_order: str = "preorder"   # preorder | near
-    # rays per kernel grid step (pipeline VMEM = 17 double-buffered
-    # (super/128, 128) f32 blocks). 128K = ~17 MB, right at the scoped
-    # limit — fine alone, but autodiff remat can co-locate two kernel
-    # instances; diff/fast.py drops this to 65536 on its path
-    trace_super_rays: int = 131072
     # differentiation: detach sampled directions / discrete decisions so
     # the backward pass is the path-replay interior-term estimator
     detach_sampling: bool = True

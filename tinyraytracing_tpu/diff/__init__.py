@@ -7,16 +7,15 @@ style backward passes (sampling decisions detached, contribution terms
 differentiated — config.detach_sampling), validated against finite
 differences in tests/test_diff.py.
 
-Three layers (round 4):
+Three layers:
 
 - diff/inverse.py — SceneParams / apply_params / render_loss over the
   fixed-depth scan renderer (the round-1 path; any intersector).
-- diff/fast.py — the FAST path: jax.custom_vjp around the Pallas fused
-  trace kernel (backward = closed-form Möller–Trumbore path replay of the
+- diff/fast.py — the FAST path: jax.custom_vjp around the trace
+  (ops/trace.py; backward = closed-form Möller–Trumbore path replay of the
   recorded hit triangles) + a planar fixed-depth renderer; apply_params
   REFITS the BVH under vertex offsets (diff/refit.py) instead of dropping
-  it. First measured fwd+bwd rays/s: cornell 512² 67M, veach 4M
-  (BASELINE.md round 4).
+  it.
 - diff/edge.py — boundary-term prototype (edge-sampled visibility
   gradients) for silhouette-dominated losses the interior-term replay
   cannot see (tests/test_diff_edge.py).

@@ -1,23 +1,16 @@
-"""Gradients on the FAST path: custom-VJP fused trace + planar renderer.
+"""Gradients on the FAST path: custom-VJP trace + planar renderer.
 
-Round 3's differentiable path was the fixed-depth scan over the brute/mxu
-intersectors — the Pallas kernels had no VJP, so inverse rendering ran at
-round-1 speeds on toy scenes and the BASELINE.json north-star metric
-(rays/s/chip forward+backward) was never measured on a real scene.
-
-This module closes that:
-
-- ``fused_trace_diff``: ``jax.custom_vjp`` around the fused trace kernel
-  (ops/pallas_trace.fused_trace_planes). FORWARD = the kernel, returning
-  the best-hit triangle index as well (return_tri). BACKWARD = path
-  replay: with the hit triangle FIXED (sampling and hit selection are
-  discrete/detached — the interior-term estimator, diff/__init__), the
-  outputs (t, interpolated shading normal, texcoord) are closed-form
-  Möller–Trumbore functions of (o, d, v0, v1, v2, n0.., t0..); the VJP of
-  that closed form — gathers + segment-scatter handled by jax.vjp —
-  yields ray and vertex gradients. The kernel computes t/u/v via Woop
-  rows (same mathematical function, equal up to f32 rounding), so the
-  replayed derivative is the derivative of what the kernel computed.
+- ``fused_trace_diff``: ``jax.custom_vjp`` around the trace
+  (ops/trace.fused_trace_planes, whichever way it is dispatched). FORWARD =
+  the trace, returning the best-hit triangle index as well (return_tri).
+  BACKWARD = path replay: with the hit triangle FIXED (sampling and hit
+  selection are discrete/detached — the interior-term estimator,
+  diff/__init__), the outputs (t, interpolated shading normal, texcoord)
+  are closed-form Möller–Trumbore functions of (o, d, v0, v1, v2, n0..,
+  t0..); the VJP of that closed form — gathers + segment-scatter handled
+  by jax.vjp — yields ray and vertex gradients. The replay uses the same
+  formula as the forward intersector, so its derivative is the derivative
+  of what the forward computed (up to float32 rounding).
 - ``render_diff``: fixed-depth planar wavefront renderer built from the
   same estimator pieces as the flagship queue renderer (fused._nee_geometry,
   sample_bsdf_planar, planar threefry RNG) but reverse-differentiable:
@@ -28,8 +21,8 @@ This module closes that:
   3-102 — NEE + Russian roulette + quirk flags), in the same planar form
   as integrator/wavefront.trace.
 
-Vertex moves keep the kernel's BVH consistent via diff/refit.py (called
-from inverse.apply_params) — the refit arrays are stop_gradient'd; all
+Vertex moves keep the BVH consistent via diff/refit.py (called from
+inverse.apply_params) — the refit arrays are stop_gradient'd; all
 geometry gradients flow through the replay, not the acceleration
 structure.
 """
@@ -57,7 +50,7 @@ from tinyraytracing_tpu.integrator.fused import (
 )
 from tinyraytracing_tpu.models.camera import camera_basis
 from tinyraytracing_tpu.ops import vec
-from tinyraytracing_tpu.ops.pallas_trace import (
+from tinyraytracing_tpu.ops.trace import (
     _INF,
     fused_trace_planes,
     occlusion_trace_segmented,
@@ -74,9 +67,9 @@ from tinyraytracing_tpu.ops.rng import (
 # per-ray triangle rows as an EXACT (R, T) one-hot matmul (0/1 operand at
 # HIGHEST precision selects rows exactly — same trick as the NEE CDF
 # fetch, integrator/fused._nee_geometry). Its VJP is the transposed
-# matmul, i.e. the (T, C) cotangent segment-sum runs ON THE MXU instead
-# of 9 per-bounce XLA scatter-adds — the round-4 vertex-grad replay paid
-# ~8x the albedo-only backward in exactly those gathers+scatters.
+# matmul, i.e. the (T, C) cotangent segment-sum is one matmul instead of
+# 9 per-bounce scatter-adds. Whether this beats gathers on the GPU is not
+# measured yet.
 _ONEHOT_T = 256
 
 
@@ -125,7 +118,7 @@ def _replay_outputs(v0, v1, v2, n0, n1, n2, t0, t1, t2,
 @partial(jax.custom_vjp, nondiff_argnums=(7,))
 def fused_trace_diff(scene, ox, oy, oz, dx, dy, dz, config,
                      t_bound, target_mtl):
-    """Differentiable fused trace: same 9-tuple as
+    """Differentiable trace: same 9-tuple as
     fused_trace_planes(return_tri=True); gradients flow to the rays and to
     scene.{v0,v1,v2,n0,n1,n2,t0,t1,t2} by path replay (module docstring).
     ``mtl``/``em``/``tri`` are discrete (zero gradient)."""
@@ -182,12 +175,12 @@ fused_trace_diff.defvjp(_ftd_fwd, _ftd_bwd)
 def render_diff(scene, cam, key, config: RenderConfig, spp: int,
                 return_rays: bool = False, pix_lo=0,
                 n_pix_local: int | None = None):
-    """Fixed-depth differentiable render on the FAST (fused-kernel) path.
+    """Fixed-depth differentiable render on the FAST (custom-VJP trace) path.
 
     Returns the (H, W, 3) linear mean image (with ``return_rays`` also the
-    traced-ray count, for fwd+bwd rays/s reporting). Requires
-    scene.bvh.packed (attach_bvh; under vertex offsets apply_params refits
-    it). Estimator semantics = integrator/wavefront.trace; RNG is
+    traced-ray count, for fwd+bwd rays/s reporting). The CUDA trace needs
+    scene.bvh (attach_bvh; under vertex offsets apply_params refits it).
+    Estimator semantics = integrator/wavefront.trace; RNG is
     path-indexed planar threefry (path = pixel*spp + sample), so the image
     is deterministic and scheduling-independent.
 
@@ -198,8 +191,6 @@ def render_diff(scene, cam, key, config: RenderConfig, spp: int,
     path-indexed RNG makes every pixel's value independent of the
     partitioning.
     """
-    config = config.replace(trace_super_rays=min(config.trace_super_rays,
-                                                 65536))
     W, H = cam.width, cam.height
     n_pix = W * H
     sliced = n_pix_local is not None
@@ -292,7 +283,7 @@ def render_diff(scene, cam, key, config: RenderConfig, spp: int,
             cat = lambda xs: jnp.concatenate(xs)
             sg = jax.lax.stop_gradient
             # visibility is discrete: the shadow trace runs OUTSIDE the
-            # gradient path (plain kernel on detached inputs)
+            # gradient path (plain trace on detached inputs)
             occl_q = config.shadow_test == "mtl"
             sh_args = (
                 sg(cat([s[0] for s in sh_o])), sg(cat([s[1] for s in sh_o])),
@@ -305,11 +296,10 @@ def render_diff(scene, cam, key, config: RenderConfig, spp: int,
             sh_tg = cat([jnp.where(okl, light_mtl_f[l], -2.0)
                          for l, (okl, _, _) in enumerate(pend)])
             if occl_q:
-                # round-5 ANY-HIT shadow walk (2 output planes) with
-                # per-light live-lane compaction on walk-bound trees (see
-                # ops/pallas_trace.occlusion_trace_segmented); everything
-                # here is detached, so the compaction sorts never enter
-                # the differentiated graph
+                # the occlusion query with per-light live-lane compaction
+                # on big trees (ops/trace.occlusion_trace_segmented);
+                # everything here is detached, so the compaction sorts
+                # never enter the differentiated graph
                 svis = occlusion_trace_segmented(
                     scene, *sh_args, sh_tb, sg(sh_tg), config, L,
                 )
@@ -388,7 +378,7 @@ def render_loss_fast(params, scene, cam, key, target, config: RenderConfig,
     (BVH refit under vertex offsets) + render_diff (custom-VJP fused
     trace). The fast-path counterpart of diff.inverse.render_loss.
 
-    EDGE-SAMPLED BOUNDARY TERMS (opt-in, round 5 — diff/edge.py): the
+    EDGE-SAMPLED BOUNDARY TERMS (opt-in, diff/edge.py): the
     interior-term replay above differentiates with the hit set fixed, so
     losses dominated by moving silhouettes or shadow boundaries get ~zero
     gradients. With ``edge_samples > 0`` the loss's GRADIENT additionally

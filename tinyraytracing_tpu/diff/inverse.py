@@ -60,7 +60,8 @@ def woop_transform_jnp(v0, v1, v2):
     inv = jnp.where(safe, 1.0 / jnp.where(safe, det, 1.0), 0.0)
     a = jnp.stack([jnp.cross(e2, n), jnp.cross(n, e1), n], axis=1)
     a = a * inv[:, None, None]
-    b = -jnp.einsum("tij,tj->ti", a, v0)
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on a GPU
+    b = -jnp.einsum("tij,tj->ti", a, v0, precision=jax.lax.Precision.HIGHEST)
     gn = n * jax.lax.rsqrt(jnp.maximum(det, 1e-30))[:, None]
     return a, b, gn
 
@@ -70,13 +71,12 @@ def apply_params(scene: Scene, cam: Camera, p: SceneParams):
 
     ``vertex_offset`` moves all three vertices of each triangle rigidly and
     recomputes EVERY derived geometric quantity differentiably — the Woop
-    rows the mxu/pallas intersectors consume and the geometric normal used
-    by the grazing cull — so no backend silently traces the untranslated
-    mesh. An attached BVH (with refit metadata) is REFIT in place
-    (diff/refit.py, stop_gradient — gradients flow through the custom-VJP
-    path replay, diff/fast.py), keeping the fast kernel path live under
-    vertex optimization; a bare BVH without metadata is dropped (brute
-    fallback, the round-3 behavior).
+    rows the mxu intersector consumes and the geometric normal used by the
+    grazing cull — so no backend silently traces the untranslated mesh. An
+    attached BVH is REFIT in place (diff/refit.py, stop_gradient —
+    gradients flow through the custom-VJP path replay, diff/fast.py),
+    keeping the BVH trace live under vertex optimization; a BVH without
+    refit metadata is dropped.
     """
     up_s = {}
     if p.kd is not None:
@@ -99,13 +99,7 @@ def apply_params(scene: Scene, cam: Camera, p: SceneParams):
             lt_v0=v0[scene.lt_tri], lt_v1=v1[scene.lt_tri],
             lt_v2=v2[scene.lt_tri],
         )
-        refittable = (
-            scene.bvh is not None
-            and scene.bvh.tri_leaf is not None
-            and scene.bvh.packed is not None
-            and scene.bvh.packed.wn_bnode is not None
-        )
-        if not refittable:
+        if scene.bvh is not None and scene.bvh.tri_leaf is None:
             up_s["bvh"] = None
     if up_s:
         scene = dataclasses.replace(scene, **up_s)
@@ -123,8 +117,7 @@ def apply_params(scene: Scene, cam: Camera, p: SceneParams):
 
 def _refit_sg(scene: Scene) -> Scene:
     """Refit the BVH to the moved vertices, stop_gradient'ing ONLY the
-    refit outputs (boxes + packed payload) — the scene's own arrays keep
-    their gradient paths."""
+    refit boxes — the scene's own arrays keep their gradient paths."""
     from tinyraytracing_tpu.diff.refit import refit_bvh
 
     refit = refit_bvh(scene)

@@ -1,20 +1,16 @@
 """BVH refit under vertex moves (differentiable-render support).
 
-``apply_params`` with vertex offsets used to DROP the BVH (round 3:
-"pallas kernels define no VJP"), sending inverse rendering to the brute
-intersectors at round-1 speeds. Offsets keep the tree TOPOLOGY valid —
-only boxes and the Woop leaf payload go stale — so this module REFITS
-them inside jit:
+Vertex offsets keep the tree TOPOLOGY valid — only the boxes go stale — so
+this module REFITS them inside jit instead of dropping the BVH:
 
 - leaf boxes: segment min/max of the moved per-triangle AABBs over
   ``BVHArrays.tri_leaf`` (builder pad ±aabb_pad applied, bvh.cpp:31-40);
 - interior boxes: bottom-up union over ``n_levels`` vectorized sweeps
   (children's padded union == subtree box ± pad, so the propagated boxes
-  equal a from-scratch build of the same topology);
-- wide-node child boxes rewritten through ``PackedLeaves.wn_bnode``;
-- PS rows 0-3 (Woop transform + geometric normal) rebuilt from the moved
-  scene arrays through the static slot->triangle map (rows 4-7 — shading
-  normals/texcoords/material — are translation-invariant).
+  equal a from-scratch build of the same topology).
+
+The trace reads triangles straight from the scene's (moved) arrays, so the
+boxes are all that needs refitting.
 
 Everything is wrapped in stop_gradient by the caller: hit-finding is
 discrete; gradients come from the custom-VJP path replay (diff/fast.py),
@@ -35,15 +31,12 @@ import jax.numpy as jnp
 
 
 def refit_bvh(scene, aabb_pad: float | None = None):
-    """Return ``scene`` with its BVH boxes + leaf payload refit to the
-    CURRENT v0/v1/v2/woop_a/woop_b/gn arrays. Requires the refit metadata
-    attach_bvh records (BVHArrays.tri_leaf/level/child_*, PackedLeaves.
-    wn_bnode/slot_valid). ``aabb_pad`` defaults to the pad the BUILDER
-    recorded on the tree (BVHArrays.aabb_pad) so refit boxes match a
-    from-scratch build even under a non-default config.aabb_pad."""
+    """Return ``scene`` with its BVH boxes refit to the CURRENT v0/v1/v2
+    arrays. ``aabb_pad`` defaults to the pad the BUILDER recorded on the
+    tree (BVHArrays.aabb_pad) so refit boxes match a from-scratch build
+    even under a non-default config.aabb_pad."""
     bvh = scene.bvh
-    pk = bvh.packed
-    if bvh.tri_leaf is None or pk is None or pk.wn_bnode is None:
+    if bvh.tri_leaf is None:
         raise ValueError("scene.bvh lacks refit metadata (re-attach_bvh)")
     if aabb_pad is None:
         aabb_pad = bvh.aabb_pad
@@ -66,47 +59,5 @@ def refit_bvh(scene, aabb_pad: float | None = None):
         nmin = jnp.where(m, jnp.minimum(nmin[cl], nmin[cr]), nmin)
         nmax = jnp.where(m, jnp.maximum(nmax[cl], nmax[cr]), nmax)
 
-    # binary node records (HBM-row kernel): cols 0-5 boxes, 6-7 unchanged
-    node_box = jnp.concatenate([nmin, nmax, pk.node_box[:, 6:8]], axis=1)
-
-    # wide-node rows: child boxes through the binary map, meta unchanged
-    bmap = jnp.maximum(pk.wn_bnode, 0)               # (n_wide, 8)
-    empty = (pk.wn_bnode < 0)[:, :, None]
-    gmin = jnp.where(empty, 0.0, nmin[bmap])         # (n_wide, 8, 3)
-    gmax = jnp.where(empty, 0.0, nmax[bmap])
-    meta = pk.WN[:, 6:64:8][:, :, None]              # (n_wide, 8, 1)
-    child = jnp.concatenate(
-        [gmin, gmax, meta, jnp.zeros_like(meta)], axis=2
-    )                                                # (n_wide, 8, 8)
-    WN = jnp.concatenate(
-        [child.reshape(pk.n_wide, 64),
-         jnp.zeros((pk.n_wide, 64), jnp.float32)],
-        axis=1,
-    )
-
-    # PS rows 0-3: Woop rows + offsets + geometric normal + emissive flag
-    # at the static slot layout (pack_bvh_leaves block layout)
-    tid = pk.tid
-    valid = pk.slot_valid
-    n_blk = pk.n_leaves
-    wa = jnp.where(valid[:, None, None], scene.woop_a[tid], 0.0)
-    wb = jnp.where(valid[:, None], scene.woop_b[tid], 0.0)
-    g = jnp.where(valid[:, None], scene.gn[tid], 0.0)
-    em = jnp.where(valid, scene.tri_emissive[tid], False)
-    attrs = [
-        wa[:, 0, 0], wa[:, 0, 1], wa[:, 0, 2], wa[:, 1, 0],
-        wa[:, 1, 1], wa[:, 1, 2], wa[:, 2, 0], wa[:, 2, 1],
-        wa[:, 2, 2], wb[:, 0], wb[:, 1], wb[:, 2],
-        g[:, 0], g[:, 1], g[:, 2], em.astype(jnp.float32),
-    ]
-    rows = []
-    for r in range(4):
-        row = jnp.concatenate(
-            [a.reshape(n_blk, 32) for a in attrs[4 * r:4 * r + 4]], axis=1
-        )                                            # (n_blk, 128)
-        rows.append(row.reshape(1, -1))              # (1, n_blk*128)
-    PS = jnp.concatenate(rows + [pk.PS[4:]], axis=0)
-
-    pk2 = dataclasses.replace(pk, node_box=node_box, PS=PS, WN=WN)
-    bvh2 = dataclasses.replace(bvh, nmin=nmin, nmax=nmax, packed=pk2)
+    bvh2 = dataclasses.replace(bvh, nmin=nmin, nmax=nmax)
     return dataclasses.replace(scene, bvh=bvh2)

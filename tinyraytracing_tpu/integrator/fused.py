@@ -1,24 +1,20 @@
-"""Fused pixel-persistent wavefront — the flagship forward renderer.
+"""Fused pixel-persistent wavefront — the forward renderer for tiny scenes.
 
-Fourth-generation renderer. Generations and what each one fixed (all
-measured on a TPU v5e; see BASELINE.md):
+Fourth-generation renderer. Generations and what each one fixed:
 
 1. wavefront.py fixed-depth scan      — correctness baseline, differentiable
 2. regen.py regeneration/persistent   — lane occupancy (RR-killed lanes
    restart immediately), dense epoch writes instead of scatter
-3. planar (retired, deleted round 3)  — component-planar (R,) state for full
+3. planar (retired)                   — component-planar (R,) state for full
    lane utilization + deferred NEE so each iteration issues ONE trace
-4. THIS — the planar design actually made *slower* by its layout: splitting
-   state into (R,) planes split every attribute fetch into its own XLA
-   gather, and per-lane gathers cost ~12 ns/element on TPU (85% of the
-   round-1 render). Here the gathers are gone:
+4. THIS — planar state with every per-triangle lookup folded into the
+   trace:
 
-   - the trace kernel (ops/pallas_trace.py) returns the barycentric-
-     interpolated shading normal, texcoord, material id and emissive flag
-     alongside the hit distance — per-triangle tables are never touched
-     by XLA code;
+   - the trace (ops/trace.py) returns the barycentric-interpolated shading
+     normal, texcoord, material id and emissive flag alongside the hit
+     distance;
    - material and light-triangle tables are resolved with fused select
-     chains (ops/lookup.py) — pure elementwise VPU code;
+     chains (ops/lookup.py) — pure elementwise code;
    - the only remaining gather is the texture fetch, and only for scenes
      that have textures.
 
@@ -26,9 +22,8 @@ Scheduling (inherited from the retired planar renderer):
 
 - PIXEL-PERSISTENT epochs: lane l serves pixel (base + epoch*R + l) for all
   its spp samples, accumulating into a lane register; the epoch block is
-  written densely (no scatter — XLA TPU scatter-add measured ~35% of the
-  regeneration renderer).
-- DEFERRED NEE: iteration i's single kernel dispatch traces
+  written densely (no scatter-add).
+- DEFERRED NEE: iteration i's single trace covers
   [bounce-i rays | bounce-(i-1) shadow rays]; the pending NEE term (already
   multiplied by throughput) resolves one iteration late, which is sound
   because the pixel estimator is purely additive per lane. If the
@@ -43,7 +38,7 @@ RNG is PATH-INDEXED counter-based threefry: every draw is a function of
 (path_id, bounce) alone — each lane carries its path key and folds in the
 bounce index — so the image is BITWISE identical for a given key no matter
 how pixels are partitioned into lanes, epochs, or device shards
-(tests/test_pallas_trace.py::test_fused_renderer_pixel_range). It differs
+(tests/test_trace.py::test_fused_renderer_slot_range). It differs
 from the scan renderer's streams, so those images agree in distribution,
 not bitwise (tests checked for MC agreement).
 
@@ -225,15 +220,13 @@ def _nee_geometry(scene, config, l, point, pn, wi, kd_val, ks, ns,
         lv0, lv1, lv2 = gat(scene.lt_v0), gat(scene.lt_v1), gat(scene.lt_v2)
         ln0, ln1, ln2 = gat(scene.lt_n0), gat(scene.lt_n1), gat(scene.lt_n2)
     else:
-        # Big light-triangle table (veach: K=760). Round 2 issued 18
-        # separate per-lane gathers here (6 tables x 3 components),
-        # measured ~117 ms/iteration at 262K lanes on a v5e — the single
-        # largest term in the 30x kernel-to-render gap. Now: the CDF pick
-        # and the row fetch are ONE fused MXU one-hot matmul — the
-        # compare plane doubles as the (exact bf16 0/1) one-hot operand,
-        # and dotting it against the (K, 18) table at HIGHEST precision
-        # selects the row exactly (products are val*1 / val*0). Measured
-        # ~5 ms vs ~7.5-8.4 ms for gather variants, vs 117 ms round 2.
+        # Big light-triangle table (veach: K=760): the CDF pick and the
+        # row fetch are ONE one-hot matmul instead of 18 per-lane gathers
+        # (6 tables x 3 components) — the compare plane doubles as the
+        # (exact bf16 0/1) one-hot operand, and dotting it against the
+        # (K, 18) table at HIGHEST precision selects the row exactly
+        # (products are val*1 / val*0). Whether this beats the gathers on
+        # the GPU is not measured yet.
         tab = jnp.concatenate(
             [scene.lt_v0[l][:K], scene.lt_v1[l][:K], scene.lt_v2[l][:K],
              scene.lt_n0[l][:K], scene.lt_n1[l][:K], scene.lt_n2[l][:K]],
@@ -305,11 +298,9 @@ def _nee_geometry(scene, config, l, point, pn, wi, kd_val, ks, ns,
 
 def pixel_tile_order(W: int, H: int, tile: int = 32):
     """Static pixel visitation order: 32x32 image tiles in row-major tile
-    order, row-major within each tile. The fused kernel walks the BVH for
-    1024-lane packets in lockstep (the packet visits the UNION of its
-    rays' nodes), and 1024 consecutive lanes in plain row-major order span
-    two full image rows — a worst-case union. In tile order a packet is a
-    compact 32x32 pixel block. Returns (order, inv): order[slot] = pixel,
+    order, row-major within each tile, so neighbouring lanes (which run
+    side by side on the device) trace neighbouring pixels and walk similar
+    parts of the BVH. Returns (order, inv): order[slot] = pixel,
     inv[pixel] = slot.
     """
     ys, xs = np.mgrid[0:H, 0:W]
@@ -325,8 +316,8 @@ def pixel_tile_order(W: int, H: int, tile: int = 32):
     return order, inv
 
 
-# parked rays: origin far outside any scene AABB so the packet slab test
-# rejects every node and dead lanes never drag a packet through the tree
+# parked rays: origin far outside any scene AABB so the root slab test
+# rejects them and dead lanes cost one node visit
 _FAR = 1.0e30
 
 
@@ -355,12 +346,12 @@ def render_fused(
     own slice of the image's tiles. RNG is path-indexed, so the rendered
     values are bitwise independent of the slot partitioning.
 
-    Requires ``scene.bvh`` with a packed PS payload (load_scene(
-    with_bvh=True) or ops.bvh.attach_bvh). The ray counter accumulates in
+    The CUDA trace needs ``scene.bvh`` (load_scene(with_bvh=True) or
+    ops.bvh.attach_bvh). The ray counter accumulates in
     float32: per-lane per-epoch counts stay below 2^24 (exact), the global
     total is a throughput statistic with ~1e-7 relative error.
     """
-    from tinyraytracing_tpu.ops.pallas_trace import fused_trace_planes
+    from tinyraytracing_tpu.ops.trace import fused_trace_planes
 
     W, H = cam.width, cam.height
     n_pix_total = W * H
@@ -448,8 +439,7 @@ def render_fused(
             active = active | can
 
             # park dead lanes far outside the scene: a parked ray fails the
-            # root AABB test, so fully-dead packets cost one node visit and
-            # partially-dead packets stop inflating the node/leaf union
+            # root AABB test and costs one node visit
             far = jnp.full(shape, _FAR, jnp.float32)
             far3 = (far, far, far)
             o = vec.where(active, o, far3)
@@ -498,7 +488,7 @@ def render_fused(
                 )
 
             # --- shade the bounce leg (all attributes straight from the
-            # kernel — no per-triangle gathers anywhere)
+            # trace)
             t = t_all[:R]
             m = mtl_a[:R]                            # material id as f32
             hit = hit_all[:R]
@@ -525,8 +515,8 @@ def render_fused(
             # --- per-(path, bounce) uniforms: 4 per light for NEE + 5 for
             # RR/BSDF, all derived from the lane's path key + bounce index
             # (bitwise scheduling-independent, see module docstring).
-            # Planar counter-based threefry (ops/rng.py): ~10x cheaper than
-            # round 2's vmap(fold_in) + per-lane uniform((4L+5,)).
+            # Planar counter-based threefry (ops/rng.py) instead of
+            # vmap(fold_in) + per-lane uniform((4L+5,)).
             draws = bounce_uniforms(pkd[0], pkd[1], bounce, 4 * L + 5)
 
             # --- queue THIS bounce's NEE (resolves next iteration)

@@ -2,46 +2,37 @@
 
 The pixel-persistent scheduler (integrator/fused.py) binds lane == pixel,
 which makes accumulation a free dense write but forbids work stealing: as
-paths die at random, live lanes scatter across packets, and by the epoch
-tail an iteration traces packets that are ~90% parked yet still walk the
-tree for their few live lanes. Measured on veach-mis @8spp the persistent
-loop ran ~580 iterations at ~8% average occupancy — 1.9 Mrays/s despite a
-23-30 Mrays/s kernel.
+paths die at random, live lanes thin out, and by the epoch tail an
+iteration traces batches that are mostly parked lanes.
 
 This renderer restores the GLOBAL PATH QUEUE of regen.py (a dead lane
 immediately starts the next (pixel, sample) from the queue, so occupancy
 stays ~100% and the loop runs ~total_work/R iterations), combined with
 everything the fused generation added:
 
-- the fused trace kernel (ops/pallas_trace.py): per-triangle attribute
-  interpolation in-kernel, zero XLA gathers;
+- the trace (ops/trace.py): closest hit plus interpolated shading
+  attributes in one call;
 - component-planar state, select-chain material/light lookups (large
-  light tables use one fused-row gather — integrator/fused._nee_geometry);
+  light tables use one fused-row matmul — integrator/fused._nee_geometry);
 - path-indexed counter RNG: every draw is a pure function of
   (path_id, bounce) via planar threefry (ops/rng.py);
-- dead-lane ranking via an MXU prefix sum (ops/scan.py) — jnp.cumsum
-  measured ~8-11 ms/iteration at 262K lanes, the MXU scan ~0.1 ms;
+- dead-lane ranking via a matmul prefix sum (ops/scan.py);
 - dead/masked rays parked at origin 1e30 so they fail the root AABB test;
 - queue order == 32x32 image-tile order (integrator.fused.pixel_tile_order)
   with consecutive path ids covering the same pixel's samples, so lane
-  refills preserve packet spatial coherence.
+  refills keep neighbouring lanes spatially coherent.
 
-NEE is IMMEDIATE (not deferred): each iteration dispatches the kernel
-twice — bounce rays, then the L shadow-ray groups of this bounce's shading
-points — and finished paths scatter-add their radiance into the image by
-pixel id.
+NEE is IMMEDIATE (not deferred): each iteration traces twice — bounce
+rays, then the L shadow-ray groups of this bounce's shading points — and
+finished paths scatter-add their radiance into the image by pixel id.
 
-CHUNKED EXECUTION (round 3): the TPU kills any device program that runs
-longer than ~60 s ("UNAVAILABLE: TPU device error" — reproduced with a
-plain loop of trace kernels, no render code involved), which is exactly
-why round 2's one-big-while_loop renders of staircase and the 1M-triangle
-grid faulted. ``render_fused_queue_chunked`` runs the SAME loop body but
-caps each device program at a host-chosen number of iterations (adapted
-to wall time), carrying the full lane state between calls. Chunk
-boundaries do not change any math — the state is identical to pausing
-the while_loop — so images are bitwise-equal to the one-shot renderer.
-The chunked state is also the checkpoint: it can be saved/loaded between
-chunks for resumable long renders (utils/checkpoint.py).
+CHUNKED EXECUTION: ``render_fused_queue_chunked`` runs the SAME loop body
+but caps each device program at a host-chosen number of iterations
+(adapted to wall time), carrying the full lane state between calls. Chunk
+boundaries do not change any math — the state is identical to pausing the
+while_loop — so images are bitwise-equal to the one-shot renderer. The
+chunked state is the checkpoint: it is saved/loaded between chunks for
+resumable long renders (utils/checkpoint.py, ``cli.py --checkpoint``).
 
 Estimator semantics identical to wavefront.trace / regen renderers
 (reference RayTracingOnCPU/pathTracing.cpp:3-102 NEE + RR + quirk flags).
@@ -51,7 +42,7 @@ order into a pixel depends on scheduling), so sharded runs agree to float
 addition reorder, not bitwise.
 
 Forward-only (lax.while_loop); gradients use diff/fast.py's fixed-depth
-planar renderer over the SAME fused kernel (custom-VJP path replay).
+planar renderer over the SAME trace (custom-VJP path replay).
 """
 
 from __future__ import annotations
@@ -91,21 +82,6 @@ from tinyraytracing_tpu.ops.sort import sort_planes_by
 
 _INF = jnp.float32(3.0e38)
 
-# temporary ablation switches for phase attribution (benchmarks only):
-# "scatter" skips the image scatter-add, "shadow" skips the shadow
-# dispatch (visibility := visible), "nee" skips NEE entirely. Renders are
-# WRONG under any switch — never set outside benchmarks.
-import os as _os
-_ABLATE = set(filter(None, _os.environ.get("TRT_ABLATE", "").split(",")))
-if _ABLATE:   # pragma: no cover - benchmark-only path
-    import warnings
-
-    warnings.warn(
-        f"TRT_ABLATE={sorted(_ABLATE)} is set: queue renders will be WRONG "
-        "(phase-attribution benchmarks only)", stacklevel=1
-    )
-
-
 def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
                  max_iters=None):
     """Build (R, max_iters, init_state, cond, body) for the queue loop.
@@ -137,23 +113,12 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
     key_data = master_key_data(key)
     resort_every = config.queue_resort_every
     resort_key = config.queue_resort_key
-    n_wide = (scene.bvh.packed.n_wide
-              if scene.bvh is not None and scene.bvh.packed is not None
-              else 0)
-    if resort_every < 0:   # auto (config.py rationale + round-4/5 sweeps)
+    n_nodes = scene.bvh.n_nodes if scene.bvh is not None else 0
+    if resort_every < 0:   # auto (config.queue_resort_every)
         resort_every = 0
         if scene.num_triangles >= 10_000:
-            # morton-origin packets beat path-order everywhere at the
-            # right cadence. With the one-sort resort (round 5: the
-            # multi-operand lax.sort replaced argsort + 18 gathers, ~22 ms
-            # -> ~1 ms per resort at 131K lanes) the sweet spot moved to
-            # EVERY iteration on walk-bound trees: staircase 6.83 -> 7.56
-            # (cheap sort, every 2) -> 8.14 (every 1); grids already ran
-            # every 1. veach-class small trees still prefer every 2
-            # (22.31 vs 21.93 — the walk is cheap enough that resort
-            # freshness buys less than it costs).
             resort_key = "morton"
-            resort_every = 1 if n_wide > 512 else 2
+            resort_every = 1 if n_nodes > 4096 else 2
     # scene AABB for the morton resort key (static, from the root node)
     if scene.bvh is not None:
         aabb_lo = jax.lax.stop_gradient(scene.bvh.nmin[0])
@@ -168,7 +133,7 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
     vertical = tuple(vertical[k] for k in range(3))
     llc = tuple(llc[k] for k in range(3))
 
-    from tinyraytracing_tpu.ops.pallas_trace import (
+    from tinyraytracing_tpu.ops.trace import (
         fused_trace_planes,
         occlusion_trace_segmented,
     )
@@ -207,11 +172,10 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
                 if resort_key == "morton":
                     # spatial re-formation: sort lanes by a 15-bit morton
                     # code of the ray ORIGIN (32^3 cells over the scene
-                    # AABB) — packets then hold spatially-local rays
-                    # regardless of path age, which shrinks the walk's
-                    # leaf union on flat many-leaf scenes (grids). Camera
-                    # lanes all share the eye origin, so the stable sort
-                    # keeps their (coherent) relative order.
+                    # AABB) — neighbouring lanes then hold spatially-local
+                    # rays regardless of path age. Camera lanes all share
+                    # the eye origin, so the stable sort keeps their
+                    # (coherent) relative order.
                     _MB = config.morton_cells
 
                     def q5(c, k):
@@ -231,10 +195,9 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
                     key_ = (spread(qx) | (spread(qy) << 1)
                             | (spread(qz) << 2))
                 elif resort_key == "path_octant":
-                    # sub-sort 8192-path blocks (8 kernel packets) by
-                    # direction octant: octant groups then span whole
-                    # packets, making each packet homogeneous in both
-                    # origin region (block) and direction signs (octant).
+                    # sub-sort 8192-path blocks by direction octant, making
+                    # neighbouring lanes homogeneous in both origin region
+                    # (block) and direction signs (octant).
                     # Path ids are rebased to the active window's minimum
                     # before keying: live ids span at most ~max_depth*R,
                     # so the shifted key always fits int32 (a raw path_id
@@ -262,12 +225,7 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
                 # never compared, only moved) and the key row-broadcast,
                 # so each row sorts by identical keys and stability gives
                 # every row the SAME permutation — the stable-argsort
-                # order. vs the alternatives measured on v5e @131K lanes:
-                # argsort + 18 per-plane gathers ~22 ms/resort; a 21-
-                # OPERAND variadic sort runs in ~0.8 ms but its comparator
-                # codegen costs ~8 s of XLA compile PER OPERAND (255 s
-                # total — the round-5 cold-compile cliff); the broadcast-
-                # key form compiles in ~9 s and runs ~1 ms.
+                # order (ops/sort.py).
                 s = sort_planes_by(key_, (
                     active, path_id, pix, bounce,
                     o[0], o[1], o[2], d[0], d[1], d[2], ray_type,
@@ -322,7 +280,7 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
         far3 = (far, far, far)
         o = vec.where(active, o, far3)
 
-        # --- dispatch 1: bounce rays (dead lanes bound at 0: instant prune)
+        # --- trace 1: bounce rays (dead lanes bound at 0: instant prune)
         t, pnx, pny, pnz, tcu, tcv, mtl, em = fused_trace_planes(
             scene, o[0], o[1], o[2], d[0], d[1], d[2], config,
             t_bound=jnp.where(active, jnp.float32(_INF), 0.0),
@@ -354,11 +312,11 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
         # --- per-(path, bounce) uniforms (path-indexed counter RNG)
         draws = bounce_uniforms(pkd[0], pkd[1], bounce, 4 * L + 5)
 
-        # --- dispatch 2: this bounce's L shadow-ray groups, immediate NEE
+        # --- trace 2: this bounce's L shadow-ray groups, immediate NEE
         pend = []
         sh_o, sh_d = [], []
         up = vec.splat(jnp.asarray([0.0, 0.0, 1.0]), shape)
-        for l in (range(L) if "nee" not in _ABLATE else ()):
+        for l in range(L):
             wo, contrib, distl, okl = _nee_geometry(
                 scene, config, l, point, pn, wi, kd_val, ks, ns,
                 draws[4 * l + 0], draws[4 * l + 1],
@@ -375,17 +333,10 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
         occl_q = config.shadow_test == "mtl"
         if not pend:
             st = smtl = svis = None
-        elif "shadow" in _ABLATE:
-            st = cat([jnp.where(okl, distl, 0.0) for (okl, _, distl) in pend])
-            smtl = cat([jnp.broadcast_to(light_mtl_f[l], (R,))
-                        for l in range(L)])
-            svis = jnp.ones((L * R,), jnp.float32)
         elif occl_q:
-            # round-5 ANY-HIT shadow walk: the pure occlusion query — the
-            # slot loop answers only (killed, target-seen), the kernel
-            # writes 2 planes instead of 9 — with per-light live-lane
-            # COMPACTION on walk-bound trees (ops/pallas_trace.
-            # occlusion_trace_segmented)
+            # the occlusion query (visibility only) with per-light
+            # live-lane compaction on big trees
+            # (ops/trace.occlusion_trace_segmented)
             svis = occlusion_trace_segmented(
                 scene,
                 cat([s[0] for s in sh_o]), cat([s[1] for s in sh_o]),
@@ -408,11 +359,11 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
                 config,
                 t_bound=cat([jnp.where(okl, distl, 0.0)
                              for (okl, _, distl) in pend]),
-                # early-kill on wrong-material hits (ops/pallas_trace._walk):
-                # occluded lanes stop inflating the packet union
+                # a hit of another material inside the bound occludes
+                # (ops/trace._resolve)
                 target_mtl=cat([jnp.where(okl, light_mtl_f[l], -2.0)
                                 for l, (okl, _, _) in enumerate(pend)]),
-                attrs=False,   # visibility only: skip shading interp
+                attrs=False,   # visibility only: skip the attribute gathers
             )
         for l, (okl, contrib, distl) in enumerate(pend):
             sl = slice(l * R, (l + 1) * R)
@@ -461,20 +412,16 @@ def _queue_setup(scene, cam, key, config, spp, lanes, path_lo, n_paths,
         bounce = bounce + 1
 
         # --- finished paths scatter into the image by pixel id. The image
-        # is carried as THREE FLAT (n_pix,) planes: a (n_pix, 3) carry gets
-        # layout {0,1:T(4,128)} inside the while loop (the 3-wide minor dim
-        # padded to 128 lanes), which turned the scatter fusion into 2.6 ms
-        # per iteration — 28% of the whole veach loop (round-5 xprof) —
-        # while the same scatter on flat planes is ~0.03 ms.
+        # is carried as THREE FLAT (n_pix,) planes rather than one
+        # (n_pix, 3) array whose 3-wide minor dimension pads badly.
         finished = active & ~alive_next
         spix = jnp.where(finished, pix, n_pix)       # out-of-range = dropped
-        if "scatter" not in _ABLATE:
-            img = tuple(
-                img[k].at[spix].add(
-                    jnp.where(finished, rad[k] * inv_spp, 0.0), mode="drop"
-                )
-                for k in range(3)
+        img = tuple(
+            img[k].at[spix].add(
+                jnp.where(finished, rad[k] * inv_spp, 0.0), mode="drop"
             )
+            for k in range(3)
+        )
         active = alive_next
 
         return (it + 1, counter, active, path_id, pix, bounce, o, d,
@@ -524,12 +471,10 @@ def render_fused_queue(
     f32). ``path_lo`` (may be traced — a shard offset) and ``n_paths``
     (static) select a slice of the global path queue [0, W*H*spp) for
     tile-sharded multi-chip rendering; path id p covers sample (p % spp)
-    of pixel order[p // spp]. Requires scene.bvh with a packed PS payload.
+    of pixel order[p // spp]. The CUDA trace needs ``scene.bvh``.
 
-    NB: one device program — long renders on the real TPU must use
-    ``render_fused_queue_chunked`` (the ~60 s program watchdog, module
-    docstring). This entry is used by tests, CPU runs, and shard_map
-    wrappers over small per-device slices.
+    One device program from start to end; ``render_fused_queue_chunked``
+    runs the same loop in host chunks with checkpoint/resume.
     """
     _, _, init_state, cond, body = _queue_setup(
         scene, cam, key, config, spp, lanes, path_lo, n_paths,
@@ -578,10 +523,11 @@ def render_fused_queue_chunked(
     progress=None,
     path_lo: int = 0,
     n_paths: int | None = None,
+    stop_after_chunks: int | None = None,
 ):
     """Host-chunked queue render: bitwise-identical to the one-shot loop,
-    but no device program exceeds ~``target_chunk_s`` (the TPU watchdog
-    kills programs around 60 s). Returns ((n_pix, 3) image, rays f32).
+    run as device programs of ~``target_chunk_s`` each so the lane state
+    can be saved between them. Returns ((n_pix, 3) image, rays f32).
 
     With ``checkpoint_path`` the full lane state is snapshotted every
     ``checkpoint_every_s`` and on completion removed; ``resume=True``
@@ -589,6 +535,10 @@ def render_fused_queue_chunked(
     PRNG key, the full RenderConfig, scene identity, and the state-layout
     version/treedef — any mismatch rejects the snapshot (fresh start)
     rather than resuming a different stream.
+
+    ``stop_after_chunks``: graceful preemption — stop after that many
+    chunks, snapshotting to ``checkpoint_path`` (kept, not cleared), and
+    return the partial image.
     """
     from tinyraytracing_tpu.utils import checkpoint as ckpt
 
@@ -621,8 +571,13 @@ def render_fused_queue_chunked(
 
     it = int(state[0])
     chunk = 4
+    chunks_done = 0
+    preempted = False
     last_ckpt = time.perf_counter()
     while True:
+        if stop_after_chunks is not None and chunks_done >= stop_after_chunks:
+            preempted = True
+            break
         t0 = time.perf_counter()
         state = _queue_chunk(
             scene, cam, key, state, jnp.int32(it + chunk), path_lo,
@@ -632,18 +587,21 @@ def render_fused_queue_chunked(
         dt = time.perf_counter() - t0
         did = it_new - it
         it = it_new
+        chunks_done += 1
         if progress is not None:
             progress(it=it, counter=int(state[1]), seconds=dt)
         if did < chunk or it >= max_iters:
             break
         # adapt chunk size to the wall-time target (growth-capped so the
-        # compile-inflated first measurement cannot overshoot the watchdog)
+        # compile-inflated first measurement cannot overshoot it)
         per = dt / max(did, 1)
         chunk = max(1, min(chunk * 4, int(target_chunk_s / max(per, 1e-4))))
         if checkpoint_path and time.perf_counter() - last_ckpt > checkpoint_every_s:
             ckpt.save_queue_state(checkpoint_path, state, meta)
             last_ckpt = time.perf_counter()
-    if checkpoint_path:
+    if checkpoint_path and preempted:
+        ckpt.save_queue_state(checkpoint_path, state, meta)
+    elif checkpoint_path:
         ckpt.clear_queue_state(checkpoint_path)
     img, ray_count = jnp.stack(state[-2], axis=-1), state[-1]
     return img, jnp.sum(ray_count)

@@ -1,10 +1,10 @@
-"""Regeneration wavefront: the TPU-idiomatic form of ray compaction.
+"""Regeneration wavefront: ray compaction with static shapes.
 
 The fixed-depth scan in wavefront.py pays every bounce for every lane even
 though Russian roulette (P=0.8) and misses kill most paths early — the
 expected path length is ~4 bounces but the scan runs max_depth (16) waves.
-GPU path tracers compact live rays between bounces; on TPU (static shapes,
-lockstep lanes) the equivalent is PATH REGENERATION: a fixed pool of R
+Path tracers compact live rays between bounces; with static shapes the
+equivalent is PATH REGENERATION: a fixed pool of R
 lanes, and whenever a lane's path terminates it immediately starts the
 next (pixel, sample) path from the global queue. Lanes stay ~fully
 occupied; the loop runs until the sample queue is drained and all lanes
@@ -23,11 +23,11 @@ NOTE: built on lax.while_loop, so this path is for FORWARD rendering only
 (not reverse-differentiable); gradients use the fixed-depth scan.
 
 DISPOSITION: superseded as a production scheduler by the queue-fed fused
-renderer (integrator/fused_queue.py — same global-queue idea, fused trace
-kernel, ~10x faster). Retained deliberately as a statistical cross-check
-ORACLE: it shares no kernel code with the fused paths, so agreement
-within MC bounds (tests/test_integrator.py, benchmarks/renderers_ab.py)
-is independent evidence the fast path computes the same estimator.
+renderer (integrator/fused_queue.py — same global-queue idea over the
+trace of ops/trace.py). Retained deliberately as a statistical cross-check
+ORACLE: it shares no trace code with the fused paths, so agreement within
+MC bounds (tests/test_integrator.py) is independent evidence the fast path
+computes the same estimator.
 """
 
 from __future__ import annotations
@@ -248,10 +248,9 @@ def render_persistent(
 
     Rationale: the regeneration renderer above scatters every iteration
     (``img.at[pix].add``) because its global path queue maps lanes to
-    arbitrary pixels; that scatter measured ~35% of the whole render on a
-    v5e (XLA TPU scatter-add pays per index, including the ~80% of lanes
-    contributing zeros). Binding pixels to lanes trades it for a free dense
-    write, at the cost of tail idling (a lane that finishes its spp early
+    arbitrary pixels, and the scatter-add pays per index, including the
+    many lanes contributing zeros. Binding pixels to lanes trades it for a
+    free dense write, at the cost of tail idling (a lane that finishes its spp early
     waits for the epoch's stragglers — sample-length variance averages out
     over spp, so occupancy stays high).
 

@@ -14,6 +14,10 @@ Two jobs (SURVEY.md §7 step 9, BASELINE.json configs 1/3/5):
 2. ``triangle_soup(n)`` / ``quad_grid(n)`` — parameterized large meshes
    (100K / 1M triangles) for BVH-scaling benchmarks; the reference assets
    top out at 31,407 triangles (staircase).
+
+3. ``write_cornell_files(dirpath)`` — the cornell box as the course's
+   XML + OBJ + MTL files, so the parsers run on a scene kept in the
+   repository (tests/data).
 """
 
 from __future__ import annotations
@@ -108,6 +112,48 @@ def cornell_box(
     scene = assemble_scene(cfg, mesh, mats)
     cam = Camera.create(cfg.eye, cfg.lookat, cfg.up, cfg.fovy, width, height)
     return scene, cam
+
+
+def write_cornell_files(dirpath: str, name: str = "cornell",
+                        width: int = 1024, height: int = 1024) -> dict:
+    """Write ``cornell_box()`` as ``<name>.xml/.obj/.mtl`` in ``dirpath``
+    (course scene format: io/xmlscene.py, io/objmesh.py, io/mtl.py).
+    Loading the files gives the same Scene as ``cornell_box()``. Returns
+    the three paths."""
+    import os
+
+    mesh = _quads_to_mesh(_CORNELL_QUADS)
+    paths = {k: os.path.join(dirpath, f"{name}.{k}") for k in ("xml", "obj", "mtl")}
+    with open(paths["xml"], "w") as f:
+        f.write(
+            f'<camera type="perspective" width="{width}" height="{height}" '
+            'fovy="39.3077">\n'
+            '    <eye x="278.0" y="273.0" z="-800.0"/>\n'
+            '    <lookat x="278.0" y="273.0" z="-799.0"/>\n'
+            '    <up x="0.0" y="1.0" z="0.0"/>\n'
+            '</camera>\n'
+            '<light mtlname="Light" radiance="34.0, 24.0, 8.0"/>\n'
+        )
+    fmt = lambda xs: " ".join(repr(float(x)) for x in xs)
+    lines = [f"mtllib {name}.mtl"]
+    lines += [f"v {fmt(p)}" for tri in mesh.v for p in tri]
+    lines += [f"vn {fmt(n)}" for tri in mesh.vn for n in tri]
+    # vn before vt: faces read v/vn/vt (the reference's isvnvt layout)
+    lines += [f"vt {fmt(t)}" for tri in mesh.vt for t in tri]
+    cur = None
+    for i, m in enumerate(mesh.mtl):
+        if m != cur:
+            lines.append(f"usemtl {mesh.mtl_names[m]}")
+            cur = m
+        k = 3 * i + 1
+        lines.append(f"f {k}/{k}/{k} {k + 1}/{k + 1}/{k + 1} {k + 2}/{k + 2}/{k + 2}")
+    with open(paths["obj"], "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(paths["mtl"], "w") as f:
+        for spec in CORNELL_MATERIALS.values():
+            f.write(f"newmtl {spec.name}\nKd {fmt(spec.kd)}\nKs {fmt(spec.ks)}\n"
+                    f"Tr {fmt(spec.tr)}\nNs {spec.ns!r}\nNi {spec.ni!r}\n\n")
+    return paths
 
 
 def cornell_box_specular(width: int = 512, height: int = 512):

@@ -9,9 +9,11 @@ heavy lifting of this framework is native too:
   vt/vn layout heuristic
 
 Compilation happens on demand with g++ (-O3, cached in ``_cache/`` keyed on
-source mtime); no pybind11 — plain ``extern "C"`` + ctypes. Everything has
-a pure-Python fallback; import failures here must never break the package
-(ops/bvh.py and io code catch ImportError).
+source mtime, written to a temporary file and renamed into place so that
+concurrent processes never load a half-written library); no pybind11 —
+plain ``extern "C"`` + ctypes. Everything has a pure-Python fallback;
+import failures here must never break the package (ops/bvh.py and io code
+catch ImportError).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
@@ -36,15 +39,19 @@ def _compile(name: str, srcs: list[str], extra: list[str] | None = None) -> str:
     # -ffp-contract=off: no FMA contraction — SAH cost arithmetic must
     # round exactly like the float64 numpy builder so both produce
     # identical trees (tested in tests/test_io.py).
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_CACHE)
+    os.close(fd)
     cmd = [
         "g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
-        "-shared", "-fPIC", "-o", so, *src_paths, *(extra or []),
+        "-shared", "-fPIC", "-o", tmp, *src_paths, *(extra or []),
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
     except (subprocess.CalledProcessError, subprocess.TimeoutExpired, OSError) as e:
+        os.unlink(tmp)
         detail = getattr(e, "stderr", b"")
         raise ImportError(f"native build failed: {cmd}: {detail!r}") from e
+    os.replace(tmp, so)
     return so
 
 

@@ -17,7 +17,11 @@ Faithful acceptance rules kept:
 
 The brute-force path scans triangles in fixed-size chunks via ``lax.scan``
 so peak memory is O(rays * tri_chunk), with a running (best_t, best_i, ...)
-carry — the TPU-idiomatic replacement for the reference's per-ray loop.
+carry in place of the reference's per-ray loop.
+
+Precision: every contraction here runs at ``Precision.HIGHEST``. A float32
+contraction left at default precision may run in TF32 on a GPU, whose
+~1e-3 relative error exceeds both t_min (5e-4) and tie_eps (4e-6).
 """
 
 from __future__ import annotations
@@ -64,20 +68,22 @@ def moller_trumbore(org, d, v0, v1, v2, gn, config: RenderConfig):
 
     org/d: (R, 3); v0/v1/v2/gn: (C, 3).
     """
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on a GPU
+    hp = jax.lax.Precision.HIGHEST
     e1 = v1 - v0                                    # (C, 3)
     e2 = v2 - v0
     pvec = jnp.cross(d[:, None, :], e2[None, :, :])  # (R, C, 3)
-    det = jnp.einsum("cj,rcj->rc", e1, pvec)
+    det = jnp.einsum("cj,rcj->rc", e1, pvec, precision=hp)
     inv_det = jnp.reciprocal(jnp.where(det == 0.0, 1.0, det))
     tvec = org[:, None, :] - v0[None, :, :]
-    u = jnp.einsum("rcj,rcj->rc", tvec, pvec) * inv_det
+    u = jnp.einsum("rcj,rcj->rc", tvec, pvec, precision=hp) * inv_det
     qvec = jnp.cross(tvec, e1[None, :, :])
-    v = jnp.einsum("rj,rcj->rc", d, qvec) * inv_det
-    t = jnp.einsum("cj,rcj->rc", e2, qvec) * inv_det
+    v = jnp.einsum("rj,rcj->rc", d, qvec, precision=hp) * inv_det
+    t = jnp.einsum("cj,rcj->rc", e2, qvec, precision=hp) * inv_det
 
     # reference acceptance: grazing cull against the *unit* geometric normal
     # (bvh.cpp:185) + t_min (bvh.cpp:189) + inside test.
-    ndd = d @ gn.T                                  # (R, C)
+    ndd = jnp.dot(d, gn.T, precision=hp)            # (R, C)
     ok = (
         (jnp.abs(ndd) >= config.n_dot_d_min)
         & (det != 0.0)
@@ -164,8 +170,7 @@ def brute_force_intersect(scene: Scene, org, d, config: RenderConfig) -> Hit:
 
 def mxu_intersect(scene: Scene, org, d, config: RenderConfig) -> Hit:
     """Closest hit over all triangles with the intersection test phrased as
-    MATMULS on the MXU (the TPU's 128x128 systolic array) instead of
-    per-triangle cross products on the VPU.
+    MATMULS instead of per-triangle cross products.
 
     Uses the per-triangle Woop transform precomputed at scene build
     (models/scene.py woop_transform): local-space ray is LINEAR in
@@ -176,10 +181,10 @@ def mxu_intersect(scene: Scene, org, d, config: RenderConfig) -> Hit:
         t  = -lo_z / ld_z ;  u = lo_x + t*ld_x ;  v = lo_y + t*ld_y
 
     The grazing cull |dot(gn, d)| >= 1e-5 (reference bvh.cpp:185) rides the
-    same matmul as 3 extra rows. ~21 matmul FLOPs/ray-triangle at MXU rate
-    vs ~60 VPU FLOPs for classic Moller-Trumbore. float32 precision is
+    same matmul as 3 extra rows: ~21 matmul FLOPs per ray-triangle pair vs
+    ~60 elementwise FLOPs for classic Moller-Trumbore. float32 precision is
     forced with Precision.HIGHEST (geometry at Cornell-box scale breaks
-    under bf16 matmul rounding).
+    under bf16 or TF32 matmul rounding).
     """
     C = config.tri_chunk
     T = scene.v0.shape[0]
@@ -188,8 +193,7 @@ def mxu_intersect(scene: Scene, org, d, config: RenderConfig) -> Hit:
 
     # BLOCK-ordered rows per chunk: [C u-rows | C v-rows | C w-rows]. The
     # matmul output (R, 3C) then yields the u/v/w planes as CONTIGUOUS
-    # (R, C) slices — no (R, C, 3) reshape whose minor dim of 3 wastes
-    # 125/128 lanes (profiled at ~11 ms per reshape at R=262k).
+    # (R, C) slices — no (R, C, 3) reshape with a minor dimension of 3.
     # Zero padding rows can never produce a valid hit: ld_w = 0 -> t = inf.
     pad3 = lambda x: _pad_to(x, C).reshape(n_chunks, C, 3)
     A = jnp.concatenate(
@@ -243,21 +247,18 @@ def mxu_intersect(scene: Scene, org, d, config: RenderConfig) -> Hit:
     return Hit(t=bt, idx=bi, u=bu, v=bv, hit=bt < INF)
 
 
-def intersect(scene: Scene, org, d, config: RenderConfig) -> Hit:
-    """Dispatch to the configured intersector backend.
+def intersect(scene: Scene, org, d, config: RenderConfig, t_bound=None) -> Hit:
+    """Dispatch to the configured intersector.
 
-    "auto" resolves per platform: on TPU the Pallas kernels (packet BVH
-    when a BVH is attached, fused brute otherwise); on CPU the XLA paths
-    (the vmapped while_loop BVH traversal is fine on CPU but measured
-    ~5K rays/s on TPU — per-lane gathers).
+    "auto" resolves to the while-loop BVH walk when a BVH is attached,
+    otherwise to the mxu matmul intersector. ``t_bound`` (optional (R,))
+    lets the BVH walk start at each ray's bound (ops/traverse.py); the
+    brute-force intersectors ignore it — callers that pass a bound apply
+    it to the result themselves (ops/trace.py).
     """
     backend = config.intersector
     if backend == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        if scene.bvh is not None:
-            backend = "bvh_pallas" if (on_tpu and scene.bvh.packed is not None) else "bvh"
-        else:
-            backend = "pallas" if on_tpu else "mxu"
+        backend = "bvh" if scene.bvh is not None else "mxu"
     if backend == "mxu":
         return mxu_intersect(scene, org, d, config)
     if backend == "brute":
@@ -267,15 +268,5 @@ def intersect(scene: Scene, org, d, config: RenderConfig) -> Hit:
 
         if scene.bvh is None:
             raise ValueError("scene has no BVH; call ops.bvh.attach_bvh first")
-        return bvh_intersect(scene, org, d, config)
-    if backend == "pallas":
-        from tinyraytracing_tpu.ops.pallas_intersect import pallas_intersect
-
-        return pallas_intersect(scene, org, d, config)
-    if backend == "bvh_pallas":
-        from tinyraytracing_tpu.ops.pallas_bvh import pallas_bvh_intersect
-
-        if scene.bvh is None or scene.bvh.packed is None:
-            raise ValueError("scene has no packed BVH (load_scene with_bvh=True)")
-        return pallas_bvh_intersect(scene, org, d, config)
+        return bvh_intersect(scene, org, d, config, t_bound=t_bound)
     raise ValueError(f"unknown intersector {backend!r}")

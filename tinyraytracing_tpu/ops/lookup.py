@@ -1,12 +1,11 @@
 """Gather-free small-table lookups.
 
-XLA TPU per-lane gathers cost ~12 ns per OUTPUT element regardless of
-table size (measured v5e: a (262144,) gather from a (36, 3) table is
-~2-4 ms; a one-hot MXU matmul ~1.3 ms; a fused select chain ~0.03 ms).
 For the tiny tables a renderer keeps consulting per bounce — materials
 (M ~ 4-36 rows), per-light triangle lists (K ~ 2-8 rows) — a chain of
-``where(idx == k, table[k], ...)`` selects is 50-100x cheaper: it is pure
-elementwise VPU code that XLA fuses into the surrounding bounce math.
+``where(idx == k, table[k], ...)`` selects replaces a per-lane gather with
+pure elementwise code that XLA fuses into the surrounding bounce math.
+(Written for a machine where gathers were expensive; on the GPU the
+comparison with a plain gather is not measured yet.)
 
 Cost is O(M * C) vector ops per call, so these helpers fall back to a
 real gather past ``CHAIN_LIMIT`` rows where the chain would stop winning.

@@ -1,15 +1,14 @@
 """Planar counter-based RNG: Threefry-2x32 on component planes.
 
-The fused renderers draw 4L+5 uniforms per (path, bounce). Round 2 drew
-them with ``jax.vmap(jax.random.fold_in)`` + per-lane ``uniform((4L+5,))``,
-which XLA compiles into a poorly-fused per-lane program measured at
-~7 ms/iteration at 262K lanes (benchmarks/queue_phases.py). This module
-implements the same Threefry-2x32 block cipher directly on (R,) uint32
-planes: each draw is ~70 fused VPU ops over the whole lane array, ~10x
-cheaper, with the same counter-based structure — every value is a pure
+The fused renderers draw 4L+5 uniforms per (path, bounce). Drawing them
+with ``jax.vmap(jax.random.fold_in)`` + per-lane ``uniform((4L+5,))``
+compiles into a poorly-fused per-lane program. This module implements the
+same Threefry-2x32 block cipher directly on (R,) uint32 planes: each draw
+is ~70 fused elementwise ops over the whole lane array, with the same
+counter-based structure — every value is a pure
 function of (seed, path_id, bounce, draw index), so images remain
 BITWISE independent of how paths are packed into lanes, epochs, or
-device shards (the property tests/test_pallas_trace.py pins).
+device shards (the property tests/test_trace.py pins).
 
 Threefry-2x32-20 (Salmon et al., SC'11 — public algorithm, the standard
 20-round schedule, same as jax's own PRNG) over planes; this is an

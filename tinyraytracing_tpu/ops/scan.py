@@ -1,14 +1,14 @@
-"""MXU-based prefix sum over a lane plane.
+"""Matmul-based prefix sum over a lane plane.
 
-``jnp.cumsum`` over a (262144,) i32 plane measured ~8-11 ms on a v5e
-(XLA lowers it to a log-depth sequence of shifted adds with bad TPU
-layouts). The queue renderer needs exactly one inclusive prefix sum per
-iteration (ranking dead lanes against the global path queue), so this is
-on the per-iteration critical path.
+The queue renderer needs exactly one inclusive prefix sum per iteration
+(ranking dead lanes against the global path queue), so this is on the
+per-iteration critical path. It was written for a machine where
+``jnp.cumsum`` was slow; whether it beats ``jnp.cumsum`` on the GPU is not
+measured yet.
 
 This implementation blocks the plane into (rows, 128) and computes the
 scan with two small triangular matmuls — prefix-within-row and
-prefix-over-row-totals — which both map onto the MXU:
+prefix-over-row-totals:
 
     y = x @ U128  (U = upper-triangular ones: inclusive scan per row)
     row offsets = exclusive scan of row totals (recursively, tiny)

@@ -1,21 +1,21 @@
 """Broadcast-key plane permutation: stable-sort many same-shape planes by
 one key with a single 2-OPERAND lax.sort.
 
-The obvious forms are both bad on TPU (measured, v5e, 131K lanes):
+The obvious forms have costs this one avoids:
 
-- argsort + per-plane permutation GATHERS: ~1.3 ms per random-index
-  (R,) gather, ~22 ms for a full queue resort;
-- one VARIADIC sort with every plane as an operand: runs in ~0.8 ms, but
-  XLA's comparator codegen costs ~8 s of compile time PER OPERAND — a
-  21-operand sort took 255 s to compile (the round-5 cold-compile cliff).
+- argsort + per-plane permutation GATHERS: one random-index gather per
+  plane;
+- one VARIADIC sort with every plane as an operand: XLA's comparator
+  code generation grows with the operand count, and a 21-operand sort
+  compiled for minutes.
 
 This form stacks the payload planes into one (C, ...) array (non-f32
 planes bitcast to f32 — sort PAYLOADS are never compared, only moved, so
 the bit pattern is opaque; bools are value-cast), broadcasts the key
 over the stacked axis, and runs ONE 2-operand stable sort along the data
 axis: every row sees identical keys, and stability then gives every row
-the SAME permutation — exactly the stable-argsort order. Compiles in
-~9 s, runs ~1 ms for 20 planes.
+the SAME permutation — exactly the stable-argsort order. Its time on the
+GPU is not measured yet.
 """
 
 from __future__ import annotations

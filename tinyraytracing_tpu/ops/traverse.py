@@ -13,6 +13,12 @@ Improvements over the reference, result-equivalent:
 - leaf triangles are tested as one masked vector batch of ``leaf_size``
   (Möller–Trumbore, ops/intersect.py) instead of a scalar loop with a per-hit
   Eigen QR solve (bvh.cpp:211-229).
+- optional per-ray start bound ``t_bound``: the walk starts with best t at
+  the bound, so nodes beyond it are pruned from the first visit. The first
+  hit is admitted iff t <= t_bound * (1 + tie_eps) and the usual rule
+  applies after it, so every hit within the band of the bound is found
+  exactly as an unbounded walk finds it (shadow rays pass the light
+  distance; ops/trace.py).
 
 Slab test per the reference interactAABB (bvh.cpp:231-245): entry t0 when
 outside, exit t1 when inside; a box "hits" when t1 >= t0 and the returned
@@ -28,14 +34,17 @@ from tinyraytracing_tpu.config import RenderConfig
 from tinyraytracing_tpu.ops.intersect import INF, Hit, moller_trumbore
 
 
-def bvh_intersect(scene, org, d, config: RenderConfig) -> Hit:
+def bvh_intersect(scene, org, d, config: RenderConfig, t_bound=None) -> Hit:
     bvh = scene.bvh
     LS = bvh.leaf_size
     N = bvh.n_nodes
     T = scene.v0.shape[0]
     lane = jnp.arange(LS)
+    eps = config.tie_eps
+    if t_bound is None:
+        t_bound = jnp.full(org.shape[:1], INF)
 
-    def one_ray(o, dd):
+    def one_ray(o, dd, tb):
         inv = jnp.reciprocal(jnp.where(dd == 0.0, 1e-30, dd))
 
         def cond(s):
@@ -75,10 +84,14 @@ def bvh_intersect(scene, org, d, config: RenderConfig) -> Hit:
             lhas = jnp.any(tie)
             li = jnp.where(lhas, jnp.argmax(tie), jnp.argmin(t))
             lt = t[li]
-            near = (lt <= bt * (1.0 + config.tie_eps)) & (
-                bt <= lt * (1.0 + config.tie_eps)
-            ) & (lt < INF)
-            repl = (~near & (lt < bt)) | (near & lhas & ~be)
+            near = (lt <= bt * (1.0 + eps)) & (bt <= lt * (1.0 + eps)) & (
+                lt < INF
+            )
+            repl = jnp.where(
+                bi < 0,
+                (lt < INF) & (lt <= tb * (1.0 + eps)),   # first admitted hit
+                (~near & (lt < bt)) | (near & lhas & ~be),
+            )
             bt = jnp.where(repl, lt, bt)
             bi = jnp.where(repl, ids[li].astype(jnp.int32), bi)
             bu = jnp.where(repl, u[0, li], bu)
@@ -89,11 +102,13 @@ def bvh_intersect(scene, org, d, config: RenderConfig) -> Hit:
             return (nxt, bt, bi, bu, bv, be)
 
         init = (
-            jnp.int32(0), INF, jnp.int32(0),
+            jnp.int32(0), tb, jnp.int32(-1),
             jnp.float32(0), jnp.float32(0), False,
         )
         _, bt, bi, bu, bv, _ = jax.lax.while_loop(cond, body, init)
         return bt, bi, bu, bv
 
-    bt, bi, bu, bv = jax.vmap(one_ray)(org, d)
-    return Hit(t=bt, idx=bi, u=bu, v=bv, hit=bt < INF)
+    bt, bi, bu, bv = jax.vmap(one_ray)(org, d, t_bound)
+    hit = bi >= 0
+    return Hit(t=jnp.where(hit, bt, INF), idx=jnp.maximum(bi, 0), u=bu, v=bv,
+               hit=hit)

@@ -1,11 +1,10 @@
 """Component-plane vector math.
 
-TPU arrays tile as (8 sublanes, 128 lanes) over the LAST TWO dims, so the
-natural (R, 3) vector layout puts xyz on the lane axis — 3/128 lane
-utilization for every elementwise op (profiled: the wavefront bounce loop
-runs ~40x below VPU peak in that layout). The hot path instead carries each
-vector as THREE full-tile planes shaped (Rb, 128) (R = Rb*128 rays), and
-these helpers operate on (x, y, z) component triples.
+The natural (R, 3) vector layout puts xyz in the minor dimension, which
+wastes most of every vector register and memory transaction on
+accelerators that tile the last dimension. The hot path instead carries
+each vector as THREE full planes of R rays, and these helpers operate on
+(x, y, z) component triples.
 
 Everything is shape-polymorphic: components may be any equal shape.
 """

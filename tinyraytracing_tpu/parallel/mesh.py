@@ -14,8 +14,8 @@ Scene, camera, and key are replicated (in_spec P()); the output image comes
 back tile-sharded and is reassembled by jit.
 
 Multi-host: call ``jax.distributed.initialize()`` first; the same code runs
-with a mesh spanning hosts (geometry replicated per host, psum over ICI —
-BASELINE.json north star).
+with a mesh spanning hosts (geometry replicated per host, psum across
+devices).
 """
 
 from __future__ import annotations
@@ -126,7 +126,8 @@ def _render_fused_sharded_jit(scene, cam, key, config, spp, mesh, lanes):
     tiles, integrator.fused.pixel_tile_order) against the replicated scene,
     then the slot images are reassembled. The fused renderer's RNG is
     path-indexed, so the result is BITWISE equal to the single-device
-    render for any mesh shape (tests/test_parallel.py)."""
+    render for any mesh shape when both compile the same per-device lane
+    count (tests/test_parallel.py)."""
     from jax import shard_map  # jax>=0.8 top-level API (experimental.shard_map is deprecated)
 
     from tinyraytracing_tpu.integrator.fused import (
@@ -251,9 +252,8 @@ def render_loss_fast_sharded(params, scene, cam, key, target,
     VJP fused trace) against the replicated scene, and the squared-error
     partial sums are ``psum``'d INSIDE the mapped body — so under
     ``jax.grad`` the parameter gradients are all-reduced inside the same
-    program, exactly where XLA's scheduler overlaps the collective with
-    the remaining backward on real multi-chip hardware (BASELINE.json
-    north star P3). Numerically equals the single-device
+    program, where XLA's scheduler can overlap the collective with the
+    remaining backward. Numerically equals the single-device
     ``diff.fast.render_loss_fast`` (pixel values are partition-
     independent via the path-indexed RNG; only the reduction order of the
     scalar loss differs).
@@ -296,7 +296,7 @@ def render_loss_fast_sharded(params, scene, cam, key, target,
 
 
 # ---------------------------------------------------------------------------
-# sharded CHUNKED queue driver (the path real hardware runs)
+# sharded CHUNKED queue driver (checkpoint/resume across devices)
 # ---------------------------------------------------------------------------
 
 @partial(
@@ -389,9 +389,9 @@ def render_queue_sharded_chunked(
     progress=None,
     stop_after_chunks: int | None = None,
 ):
-    """Host-chunked MULTI-DEVICE queue render — the same chunking real
-    hardware needs (no device program outlives the ~60 s TPU watchdog)
-    applied to the path-queue-sharded renderer. Math identical to
+    """Host-chunked MULTI-DEVICE queue render — the single-device chunked
+    driver's checkpoint/resume applied to the path-queue-sharded renderer.
+    Math identical to
     ``render_queue_sharded`` (chunk boundaries just pause each device's
     while_loop); the full per-device lane state is checkpointable between
     chunks exactly like the single-device chunked driver.

@@ -76,10 +76,10 @@ def render(
     return acc / spp
 
 
-# Queue scheduling pays a per-iteration scatter-add; on cornell-class scenes
-# whose fused-trace kernel runs in ~us it dominates, while on real scenes the
-# kernel runs in ms and the queue's ~100% occupancy wins (fused_queue.py
-# docstring, measured in benchmarks/renderers_ab.py).
+# Queue scheduling pays a per-iteration scatter-add, which dominates on
+# cornell-class scenes whose trace is cheap; on real scenes the queue's
+# ~100% occupancy wins (fused_queue.py docstring). The crossover was tuned
+# on the previous accelerator and is not measured on the GPU yet.
 _QUEUE_MIN_TRIS = 512
 
 
@@ -109,15 +109,15 @@ def render_image(
     ``renderer``: 'auto' (flagship fused wavefront, scheduling picked by
     scene size), 'persistent' (fused pixel-persistent), 'queue' (queue-fed
     fused), or 'scan' (fixed-depth differentiable scan; gradients prefer
-    diff.fast.render_diff — the custom-VJP fused path). On an accelerator backend the queue
-    renderer runs host-chunked (no device program outlives the ~60 s TPU
-    watchdog) and supports checkpoint/resume via ``checkpoint_path``."""
+    diff.fast.render_diff — the custom-VJP fused path). The queue renderer
+    runs host-chunked, which is what gives it checkpoint/resume through
+    ``checkpoint_path`` (images are bitwise those of one device program)."""
     spp_val = spp or config.spp
     key = jax.random.PRNGKey(seed)
     if renderer == "auto":
         renderer = pick_renderer(scene)
     if renderer in ("persistent", "queue"):
-        if scene.bvh is None or scene.bvh.packed is None:
+        if scene.bvh is None:
             from tinyraytracing_tpu.ops.bvh import attach_bvh
 
             scene = attach_bvh(scene, config)
@@ -125,12 +125,6 @@ def render_image(
             from tinyraytracing_tpu.integrator.fused import render_fused_jit
 
             img = render_fused_jit(scene, cam, key, config, spp_val, lanes)
-        elif jax.default_backend() == "cpu":
-            from tinyraytracing_tpu.integrator.fused_queue import (
-                render_fused_queue_jit,
-            )
-
-            img = render_fused_queue_jit(scene, cam, key, config, spp_val, lanes)
         else:
             from tinyraytracing_tpu.integrator.fused_queue import (
                 render_fused_queue_chunked,

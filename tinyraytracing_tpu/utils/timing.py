@@ -3,7 +3,7 @@
 The reference prints a single ``clock()`` delta — CPU time, which under
 OpenMP overcounts by the thread count (RayTracingOnCPU/main.cpp:60-61,
 116-117). This is a real wall-clock timer with explicit device
-synchronization for honest TPU numbers.
+synchronization, so device work is counted to its end.
 """
 
 from __future__ import annotations
